@@ -14,10 +14,13 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
+
+from opensearch_jvector_tpu.utils.compile_cache import configure_compile_cache
+
+configure_compile_cache()
 
 
 def main():

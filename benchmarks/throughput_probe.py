@@ -1,9 +1,7 @@
-"""Build-throughput experiment matrix (run on the real TPU).
+"""Build-throughput experiment matrix.
 
-Round-3 target: >= 8k vec/s warm at 100k x 128d (VERDICT item 7; BENCH_r02
-was 2.9k, auto round sizing got 4.8k). The per-phase profile says overflow
-prune 44% / beam search 30% / apply 12% / round prune 10% / back-edges 4%,
-so the matrix sweeps the overflow-phase levers first.
+Sweeps the builder's overflow-phase levers. Which build phase dominates
+on the H100 is not profiled yet.
 
 Usage (each config builds the same corpus twice; the second, warm build is
 the reported number):

@@ -4,7 +4,7 @@
 // Role in the framework (SURVEY.md §5 "long-context" analog): DiskANN keeps
 // PQ codes in fast memory and full-precision vectors on disk, paging rows on
 // demand (reference claims README.md:30,36; its I/O rides Lucene IndexInput
-// slices). Here the device (TPU HBM) holds the graph + PQ codes while fp32
+// slices). Here device memory holds the graph + PQ codes while fp32
 // rows live in an mmap'd file managed by this library; the rerank phase
 // gathers only the candidate rows and uploads a [Q, R, d] block.
 //

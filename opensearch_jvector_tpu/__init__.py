@@ -1,4 +1,4 @@
-"""opensearch_jvector_tpu — a TPU-native DiskANN/Vamana vector search engine.
+"""opensearch_jvector_tpu — a DiskANN/Vamana vector search engine in JAX.
 
 A brand-new JAX/XLA/Pallas implementation of the capability surface of the
 OpenSearch jVector plugin (reference: opensearch-project/opensearch-jvector):
@@ -7,7 +7,8 @@ Vamana graph construction, PQ/NVQ quantization with fused-ADC search, two-phase
 filtered/exact/rescored/MMR search, stats, and mesh-sharded distributed search.
 
 Layer map (mirrors SURVEY.md §7):
-  ops/      — Pallas/XLA kernels: distances, ADC, k-means, NVQ transcode, top-k
+  ops/      — XLA and Pallas (GPU) kernels: distances, ADC, k-means, NVQ
+              transcode, top-k
   models/   — Vamana graph + builder + searcher; PQ / NVQ / scalar quantizers
   index/    — segment store, writer/flush, reader/search, docmap, merge
   query/    — knn query DSL, filters, rescoring, exact scoring, MMR

@@ -74,11 +74,9 @@ class DiskAnnConfig:
     # the native host-tier store for the rerank phase.
     mode: str = "in_memory"
     # Index structure: "vamana" builds the DiskANN graph; "flat" skips the
-    # graph entirely and serves every query through the MXU scan tier
-    # (FlatVectorFieldMapper parity — the reference's no-index flat vector
-    # type, mapper/FlatVectorFieldMapper; on TPU the flat tier is a
-    # first-class production path because a dense bf16 scan at batch
-    # saturates the MXU and beats graph traversal well past 1M codes).
+    # graph entirely and serves every query through the exhaustive scan
+    # tier (FlatVectorFieldMapper parity — the reference's no-index flat
+    # vector type, mapper/FlatVectorFieldMapper).
     index_type: str = "vamana"
 
     def __post_init__(self):

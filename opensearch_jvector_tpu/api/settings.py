@@ -64,15 +64,14 @@ SETTINGS: dict[str, Setting] = {
         Setting("index.knn.advanced.scan_tier_max_codes", -1,
                 lambda v: isinstance(v, int),
                 description="segment size at or below which queries take "
-                            "the exhaustive MXU scan tier instead of graph "
+                            "the exhaustive scan tier instead of graph "
                             "traversal (-1 = engine default 262144). Raise "
                             "for corpora where distance concentration caps "
                             "graph recall: the scan is linear in N but "
-                            "exhaustive, and degrades to the codes-only "
-                            "fused-decode kernel when the decoded cache "
-                            "trips the memory breaker (no TPU analog in "
-                            "the reference; jVector graph-searches every "
-                            "segment)"),
+                            "exhaustive, and degrades to codes-only LUT "
+                            "scoring when the decoded cache trips the "
+                            "memory breaker (no analog in the reference; "
+                            "jVector graph-searches every segment)"),
         Setting("knn.quantization.cache.size.limit", 5.0, _pct(0.0, 10.0),
                 description="% of heap for quantization state cache "
                             "(default 5%, cap 10%, KNNSettings.java:112-114)"),

@@ -1,6 +1,6 @@
 """Bidirectional graph-ordinal <-> document-id mapping.
 
-TPU-native counterpart of `GraphNodeIdToDocMap` (GraphNodeIdToDocMap.java:
+Device-side counterpart of `GraphNodeIdToDocMap` (GraphNodeIdToDocMap.java:
 17-23, 39-60, 119-141, 169-177): vectors live in a dense ordinal space while
 documents live in a sparse, delete-prone doc-id space; the map must survive
 sorting (update with a sort map at flush) and merges (reconstruction from

@@ -1,6 +1,6 @@
 """Segment merging: incremental leading-segment merge + codebook reuse.
 
-TPU-native counterpart of the reference's merge path
+Device counterpart of the reference's merge path
 (JVectorWriter.mergeOneField -> RandomAccessMergedFloatVectorValues.merge,
 JVectorWriter.java:192-213, 1010-1025):
 
@@ -240,8 +240,8 @@ def _incremental_merge(
     build_pq = None
     if pqv is not None and cfg.mode == "on_disk":
         # PQ build scoring only for the memory-constrained tier (fp32 is
-        # resident during in-memory merges; exact MXU scoring is faster).
-        # Decoded-bf16 formulation: same scores as ADC LUTs at TPU speed.
+        # resident during in-memory merges and is scored exactly).
+        # Decoded-bf16 formulation: same scores as ADC LUTs.
         build_pq = {"decoded": pqv.decode_bf16()}
 
     if n_new:
@@ -321,8 +321,8 @@ def _full_rebuild_merge(
     build_pq = None
     if pqv is not None and cfg.mode == "on_disk":
         # PQ build scoring only for the memory-constrained tier (fp32 is
-        # resident during in-memory merges; exact MXU scoring is faster).
-        # Decoded-bf16 formulation: same scores as ADC LUTs at TPU speed.
+        # resident during in-memory merges and is scored exactly).
+        # Decoded-bf16 formulation: same scores as ADC LUTs.
         build_pq = {"decoded": pqv.decode_bf16()}
 
     from opensearch_jvector_tpu.models.graph import bucket_capacity, pad_rows

@@ -12,7 +12,7 @@ On disk it is a directory of checksummed containers:
                  persists a separate neighbors-score-cache file so a merge
                  can reload+mutate the graph without recomputing neighbor
                  scores (JVectorWriter.java:339-363, 1174-1188) — neighbor
-                 scores here are recomputed on the MXU in microseconds, so
+                 scores here are recomputed on the device instead, so
                  persisting adjacency alone suffices for incremental merge.
   vectors.jvtpu  fp32 rows, or NVQ (bytes/params/global_mean) when the
                  config uses nvq+pq (inline-feature parity: InlineVectors

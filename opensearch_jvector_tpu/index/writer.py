@@ -1,6 +1,6 @@
 """Index writer: buffer -> quantize policy -> graph build -> segment flush.
 
-TPU-native counterpart of `JVectorWriter` flush (JVectorWriter.java:216-261):
+Device counterpart of `JVectorWriter` flush (JVectorWriter.java:216-261):
   * buffers (docId, float vector) pairs per field — byte vectors rejected
     (reference rejects byte[] at JVectorWriter.java:178-184)
   * quantize-then-build policy (quantizeForFlush, :263-283): below
@@ -195,7 +195,7 @@ class IndexWriter:
         `device_rows(lo, hi) -> [hi-lo, d] jax.Array` is an optional
         device-resident source for the SAME rows (ingest-order positions):
         when given, PQ encoding reads blocks from it instead of uploading
-        the host buffer — the TPU-native ingest path for vectors that
+        the host buffer — the ingest path for vectors that
         already live on device (e.g. straight out of an embedding model)
         or can be regenerated there. Training still samples the host rows
         (a 131k sample, not a corpus pass).
@@ -250,12 +250,12 @@ class IndexWriter:
             Counter.KNN_QUANTIZATION_TRAINING_TIME,
             int((time.monotonic() - t0) * 1000),
         )
-        # Quantized construction (PQ build-score provider) only where it
-        # buys something on TPU: the fp32 array is resident during flush, so
-        # exact MXU scoring is faster than ADC gathers; on_disk mode keeps
-        # the PQ-build path (memory-constrained tier, reference behavior),
-        # scored from the decoded-bf16 cache (row gathers + MXU einsum —
-        # the same in-graph ADC formulation the query tier uses).
+        # Quantized construction (PQ build-score provider) only for
+        # on_disk mode (memory-constrained tier, reference behavior): the
+        # fp32 array is device-resident during an in_memory flush and is
+        # scored exactly. on_disk builds score from the decoded-bf16 cache
+        # (row gathers + einsum — the same in-graph ADC formulation the
+        # query tier uses).
         build_pq = None
         if cfg.mode == "on_disk" and cfg.index_type != "flat":
             # flat segments build no graph — don't pay the decode here
@@ -330,7 +330,8 @@ class IndexWriter:
             self._flush_counter += 1
         name = name or f"seg_{counter:06d}_{count}"
 
-        # memory circuit breaker: refuse a build that would blow HBM.
+        # memory circuit breaker: refuse a build that would exhaust
+        # device memory.
         # flat ingest keeps fp32 host-side and builds no adjacency — only
         # the PQ codes ever reach the device during the flush.
         from opensearch_jvector_tpu.utils.circuit_breaker import BREAKER
@@ -396,8 +397,8 @@ class IndexWriter:
                 vectors = parts[0] if len(parts) == 1 else jnp.concatenate(
                     parts)
                 # drop the block references NOW: holding them through
-                # quantize+build keeps a full second corpus copy in HBM
-                # (4.3GB at 8M x 128d — measured OOM at that scale)
+                # quantize+build keeps a full second corpus copy in device
+                # memory (4.3GB at 8M x 128d)
                 del parts
                 device_rows = None  # rows are device-resident now
             else:
@@ -416,7 +417,7 @@ class IndexWriter:
         cap = bucket_capacity(vectors.shape[0])
         if cfg.index_type == "flat":
             # flat index_type (FlatVectorFieldMapper parity): no graph —
-            # every query serves through the MXU scan tier, and ingest is
+            # every query serves through the scan tier, and ingest is
             # quantize + store only (the big-N fast-ingest path)
             from opensearch_jvector_tpu.models.graph import VamanaGraph
 

@@ -1,4 +1,4 @@
-"""Vamana graph data model (TPU-resident, static shapes).
+"""Vamana graph data model (device-resident, static shapes).
 
 Replaces jVector's `OnHeapGraphIndex` / `OnDiskGraphIndex` pair with a single
 dense representation designed for XLA:

@@ -1,6 +1,6 @@
 """NVQ quantization model (per-vector nonlinear scalar quantization).
 
-TPU-native counterpart of jVector's `NVQuantization` / `NVQVectors`
+Device counterpart of jVector's `NVQuantization` / `NVQVectors`
 (compute/encodeAll at JVectorIndexQuantization.java:95-108, 260-266).
 NVQ replaces the fp32 inline vectors in the graph with ~1 byte/dim codes
 plus 28B/subvector parameters; an auxiliary PQ is ALWAYS trained alongside

@@ -1,6 +1,6 @@
 """Product quantization model (codebooks + codes).
 
-TPU-native replacement for jVector's `ProductQuantization` /
+Device replacement for jVector's `ProductQuantization` /
 `PQVectors` (training call site JVectorIndexQuantization.java:114-140,
 encode at :133, query-time ADC at JVectorReader.java:355).
 
@@ -361,16 +361,14 @@ class PQVectors:
     def decode_bf16(self) -> jax.Array:
         """Decoded-candidate cache [n, d] bf16 for the in-graph ADC tier.
 
-        TPU-first replacement for fused-ADC beam scoring (the reference
-        scores beam candidates through per-query LUT gathers —
-        `pqVectors.precomputedScoreFunctionFor`, JVectorReader.java:355).
-        On TPU, per-element LUT gathers run ~1e8 elem/s while row gathers +
-        an MXU contraction run at memory/compute speed-of-light, so the
-        codes are decoded ONCE per segment load into a bf16 array; beam
-        candidates are then scored exactly like fp32 (gather rows + einsum).
-        Identical math: d(q, decode(c)) == sum_m LUT[m, code_m].
-        Costs 2*d bytes/vector HBM (vs 4*d fp32; the fp32 rows stay in the
-        host-side native store for rerank).
+        Replacement for fused-ADC beam scoring (the reference scores beam
+        candidates through per-query LUT gathers —
+        `pqVectors.precomputedScoreFunctionFor`, JVectorReader.java:355):
+        the codes are decoded ONCE per segment load into a bf16 array, and
+        beam candidates are then scored like fp32 rows (gather rows +
+        einsum). Identical math: d(q, decode(c)) == sum_m LUT[m, code_m].
+        Costs 2*d bytes/vector of device memory (vs 4*d fp32; the fp32
+        rows stay in the host-side native store for rerank).
         """
         return self.decode(dtype=jnp.bfloat16)
 
@@ -390,18 +388,11 @@ class PQVectors:
         self, queries: jax.Array, simf: SimilarityFunction,
         lo: int = 0, hi: int | None = None,
     ) -> jax.Array:
-        """Full-scan ADC scores [Q, n] (MXU one-hot-matmul accumulation).
+        """Full-scan ADC scores [Q, n] (`ops/adc.lookup_scan`).
 
         `lo`/`hi` scan a code slice (blocked big-N scans: the [Q, n] score
         slab must stay bounded)."""
         luts = self.build_query_luts(queries, simf)
         codes = self.codes if lo == 0 and hi is None else self.codes[lo:hi]
-        if jax.default_backend() == "tpu":
-            from opensearch_jvector_tpu.ops.pallas.adc_kernel import (
-                fused_adc_scan,
-            )
-
-            vals = fused_adc_scan(luts, codes)
-        else:
-            vals = adc_ops.lookup_scan(luts, codes.astype(jnp.int32))
+        vals = adc_ops.lookup_scan(luts, codes)
         return adc_ops.adc_value_to_score(vals, simf)

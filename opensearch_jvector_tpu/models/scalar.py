@@ -1,6 +1,6 @@
 """Scalar (binary / multi-bit) quantization framework.
 
-TPU-native counterpart of the reference's `quantization/` package:
+Device counterpart of the reference's `quantization/` package:
 `OneBitScalarQuantizer` (per-dimension mean threshold trained on a
 reservoir sample, default 25k — OneBitScalarQuantizer.java:25-40),
 `MultiBitScalarQuantizer` (2/4-bit per dimension with per-dimension

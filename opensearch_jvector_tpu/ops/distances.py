@@ -1,11 +1,17 @@
-"""Batched distance / similarity kernels (MXU-friendly).
+"""Batched distance / similarity kernels.
 
-TPU-native replacements for the reference's SIMD distance path
+Device replacements for the reference's SIMD distance path
 (jVector `VectorSimilarityFunction.compare`, used e.g. at
 JVectorVectorScorer.java:42 and throughout graph build/search).
 
-All kernels are batched matmuls so XLA tiles them onto the MXU; scalar
-one-pair comparison is deliberately not the primitive.
+All kernels are batched matmuls so XLA hands them to its matrix units;
+scalar one-pair comparison is deliberately not the primitive.
+
+Precision: every float32 product here runs at `EXACT`
+(`Precision.HIGHEST`). On a GPU the default precision lets XLA use TF32,
+which keeps about three decimal digits and would make the exact rerank,
+the exact fallback, script scores and the recall oracle inexact. bf16
+operands (the decoded-PQ cache) are unaffected by the setting.
 
 Score conventions follow jVector (scores are "higher is better", bounded):
   EUCLIDEAN:    score = 1 / (1 + ||a-b||^2)
@@ -53,12 +59,16 @@ SIMILARITY_ORDINALS = {
 ORDINAL_TO_SIMILARITY = {v: k for k, v in SIMILARITY_ORDINALS.items()}
 
 
+EXACT = jax.lax.Precision.HIGHEST
+
+
 def _dot(a: jax.Array, b: jax.Array) -> jax.Array:
-    """[m, d] x [n, d] -> [m, n] on the MXU, f32 accumulation."""
+    """[m, d] x [n, d] -> [m, n], f32 accumulation at full precision."""
     return jax.lax.dot_general(
         a,
         b,
         dimension_numbers=(((a.ndim - 1,), (b.ndim - 1,)), ((), ())),
+        precision=EXACT,
         preferred_element_type=jnp.float32,
     )
 
@@ -96,20 +106,22 @@ def batched_candidate_scores(
 ) -> jax.Array:
     """Per-query candidate scoring: [Q, d] x [Q, C, d] -> [Q, C].
 
-    The hot scoring op inside beam search: each query scores its own gathered
-    candidate rows. One batched matvec-as-matmul (einsum) on the MXU.
+    The hot scoring op inside beam search and the exact rerank: each query
+    scores its own gathered candidate rows. One batched matvec (einsum).
     """
     if simf is SimilarityFunction.EUCLIDEAN:
         q2 = jnp.sum(queries * queries, -1)[:, None]
         c2 = jnp.sum(cand_vecs * cand_vecs, -1)
         dot = jnp.einsum(
-            "qd,qcd->qc", queries, cand_vecs, preferred_element_type=jnp.float32
+            "qd,qcd->qc", queries, cand_vecs, precision=EXACT,
+            preferred_element_type=jnp.float32,
         )
         d2 = jnp.maximum(q2 + c2 - 2.0 * dot, 0.0)
         return 1.0 / (1.0 + d2)
     if simf is SimilarityFunction.DOT_PRODUCT:
         dot = jnp.einsum(
-            "qd,qcd->qc", queries, cand_vecs, preferred_element_type=jnp.float32
+            "qd,qcd->qc", queries, cand_vecs, precision=EXACT,
+            preferred_element_type=jnp.float32,
         )
         return (1.0 + dot) / 2.0
     if simf is SimilarityFunction.COSINE:
@@ -119,7 +131,8 @@ def batched_candidate_scores(
         cn = cand_vecs * jax.lax.rsqrt(
             jnp.sum(cand_vecs * cand_vecs, -1, keepdims=True) + 1e-30
         )
-        dot = jnp.einsum("qd,qcd->qc", qn, cn, preferred_element_type=jnp.float32)
+        dot = jnp.einsum("qd,qcd->qc", qn, cn, precision=EXACT,
+                         preferred_element_type=jnp.float32)
         return (1.0 + dot) / 2.0
     raise ValueError(f"unsupported similarity {simf}")
 

@@ -1,10 +1,10 @@
 """Jitted k-means++ / Lloyd clustering — the PQ codebook trainer.
 
-TPU-native replacement for the reference's `ProductQuantization.compute`
+Device replacement for the reference's `ProductQuantization.compute`
 (k-means++ per subspace, UNWEIGHTED centroid updates, parallel pools —
 call site JVectorIndexQuantization.java:114-140). Here the per-subspace
-parallelism is a `vmap` and the per-point parallelism is batched matmuls on
-the MXU; no thread pools.
+parallelism is a `vmap` and the per-point parallelism is batched matmuls;
+no thread pools.
 
 UNWEIGHTED == plain arithmetic-mean centroid update (no point weights).
 """
@@ -51,7 +51,7 @@ def _kmeanspp_init(x: jax.Array, k: int, key: jax.Array) -> jax.Array:
 def _lloyd_iter(x: jax.Array, centroids: jax.Array) -> jax.Array:
     """One Lloyd step: assign to nearest centroid, recompute means.
 
-    Centroid update as one-hot matmul so the reduction runs on the MXU.
+    Centroid update as one-hot matmul so the reduction is one matmul.
     Empty clusters keep their previous centroid.
     """
     k = centroids.shape[0]

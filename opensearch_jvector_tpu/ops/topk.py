@@ -32,13 +32,15 @@ def merge_topk(
     return topk_scores(s, i, k)
 
 
-def exact_topk_wide(scores: jax.Array, k: int, sub: int = 4096):
+def exact_topk_wide(scores: jax.Array, k: int, sub: int = 1024):
     """Exact top-k over very wide rows, [Q, B] -> ([Q, k], [Q, k] indices).
 
-    `lax.top_k` is sort-bound on TPU (~80s for [512, 1M] f32); a two-stage
-    exact reduction — top-k within `sub`-wide blocks, then top-k over the
-    survivors — is O(B) with a small constant and exact (every global
-    top-k element is top-k within its own block)."""
+    A two-stage exact reduction — top-k within `sub`-wide blocks, then
+    top-k over the survivors — exact because every global top-k element is
+    top-k within its own block. On an H100 it beat one `lax.top_k` over the
+    whole row ([512, 2^20], k=50: 26.1 ms at sub=1024 vs 31.3 ms, and
+    `approx_max_k` 31.2 ms) and in the scan tier end to end (CHANGES.md).
+    """
     qn, b = scores.shape
     if b <= sub:
         return jax.lax.top_k(scores, min(k, b))

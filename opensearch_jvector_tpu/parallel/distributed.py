@@ -4,8 +4,8 @@ The engine-level analog of OpenSearch's shard-level data parallelism
 (SURVEY.md §2.4/§2.5): the corpus is split round-robin across S shards;
 each shard is an independent VectorIndex whose segments live on one mesh
 device; queries fan out to all shards and the per-shard top-k merge rides
-`all_gather` over ICI (parallel/sharded.py) when every shard is a single
-clean segment, else a host-side merge (the transport-layer analog).
+one `all_gather` across the mesh (parallel/sharded.py) when the shards'
+segments stack, else a host-side merge (the transport-layer analog).
 
 Stats aggregate across shards like the reference's TransportNodesAction
 broadcast (KNNStatsTransportAction.java:28,87-97).
@@ -60,7 +60,9 @@ class ShardedVectorIndex:
         # coordinator-level registry (query-shape counters incremented by
         # the query layer when it drives this index directly)
         self.stats_registry = StatsRegistry()
-        self.mesh = mesh
+        self.mesh = None
+        if mesh is not None:
+            self.attach_mesh(mesh)
         self._mesh_state = None  # cached stacked device arrays
         self._mesh_segments = None  # segment names the cache was built from
         # guards the (state, names) pair: two concurrent searches must not
@@ -73,7 +75,16 @@ class ShardedVectorIndex:
         self._synth_pq_cache: dict[str, object] = {}
 
     def attach_mesh(self, mesh) -> None:
-        """Place shards on a device mesh (one shard per mesh device)."""
+        """Place shards on a device mesh (one shard per mesh device).
+
+        Raises ValueError unless the mesh has exactly one device per
+        shard: a mismatched mesh would otherwise never serve a search."""
+        from opensearch_jvector_tpu.parallel.sharded import mesh_size
+
+        if mesh_size(mesh) != self.n_shards:
+            raise ValueError(
+                f"mesh of {mesh_size(mesh)} devices cannot hold "
+                f"{self.n_shards} shards (one shard per device)")
         self.mesh = mesh
         self._mesh_state = None
 
@@ -126,12 +137,25 @@ class ShardedVectorIndex:
         return total
 
     def flush(self) -> list[str | None]:
-        # per-shard flushes overlap on the search pool (host-side quantize
-        # prep + IO overlap; device programs serialize on the stream)
+        """Flush every shard; the flushes overlap on the search pool. With
+        a mesh attached, shard s builds on mesh device s (JAX's default
+        device is thread-local), so the builds run concurrently, one per
+        device; otherwise every shard builds on the default device."""
+        import jax
+
         from opensearch_jvector_tpu.parallel.pools import ComputePools
 
+        devices = (list(self.mesh.devices.flat) if self.mesh is not None
+                   else [None] * self.n_shards)
+
+        def one(shard, device):
+            if device is None:
+                return shard.flush()
+            with jax.default_device(device):
+                return shard.flush()
+
         pool = ComputePools.instance()
-        return list(pool.search_pool.map(lambda s: s.flush(), self.shards))
+        return list(pool.search_pool.map(one, self.shards, devices))
 
     def force_merge(self) -> list[str]:
         from opensearch_jvector_tpu.parallel.pools import ComputePools
@@ -260,8 +284,6 @@ class ShardedVectorIndex:
 
         if self.mesh is None:
             return None
-        if int(np.prod(self.mesh.devices.shape)) != self.n_shards:
-            return None
         shard_lists, reject = self._mesh_ready_segments()
         if shard_lists is None:
             self.stats_registry.increment(reject)
@@ -288,7 +310,7 @@ class ShardedVectorIndex:
                     # re-uploaded
                     self._mesh_state, rebuilt = sharded.restack_engine_state(
                         self._mesh_state, self._mesh_segments, shard_lists,
-                        names,
+                        names, mesh=self.mesh,
                     )
                 except ValueError:  # mixed-quantization / flat-disk shards
                     self.stats_registry.increment(
@@ -490,7 +512,7 @@ class ShardedVectorIndex:
 
         Mesh path: one compiled program fans the batch out to every
         shard's device, runs the full two-phase search per shard, and
-        merges doc-id results over ICI. Host path (fallback): each
+        merges doc-id results across the mesh. Host path (fallback): each
         shard's search is itself one device program; the merge over
         S * k results is negligible host work.
         """

@@ -3,7 +3,7 @@
 Mirrors the reference's dedicated ForkJoinPools — SIMD_POOL_FLUSH vs
 SIMD_POOL_MERGE kept separate so background merges never starve foreground
 flushes, with merge threads at lowered priority (JVectorFormat.java:36-39,
-197-212, priority NORM-2 at :206). Device compute is serialized by the TPU
+197-212, priority NORM-2 at :206). Device compute is serialized by the device
 stream; these pools parallelize the HOST side (adjacency bookkeeping,
 serialization, IO) and keep merge work off the ingest path.
 """

@@ -1,11 +1,12 @@
 """Mesh-sharded distributed search (corpus data-parallelism over devices).
 
-TPU-native replacement for OpenSearch's shard-level scatter-gather (SURVEY.md
+Device replacement for OpenSearch's shard-level scatter-gather (SURVEY.md
 §2.5: the reference delegates multi-node search fan-out + top-k merge to
 OpenSearch core over the transport layer). Here each mesh device owns one
 corpus shard (its own sub-graph + vectors/codes); queries are replicated;
 every device runs the same beam-search program on its shard; the per-shard
-top-k lists ride ICI via `all_gather` and a replicated global top-k merge.
+top-k lists cross the device interconnect (NVLink between GPUs of one host)
+in one all-gather, followed by a replicated global top-k merge.
 
 Layout convention: shard-stacked arrays with a leading `shard` axis —
   adjacency [D, n, M], live [D, n], entries [D], vectors [D, n, d], ...
@@ -16,12 +17,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from opensearch_jvector_tpu.models import searcher as searcher_mod
 from opensearch_jvector_tpu.models.searcher import SearchParams
@@ -35,97 +35,14 @@ AXIS = "shard"
 
 
 def make_mesh(devices=None) -> Mesh:
-    """1-D corpus-sharding mesh over all (or given) devices."""
-    import numpy as np
-
+    """1-D corpus-sharding mesh over all (or given) devices. Flat, because
+    every GPU of one host reaches every other at the same NVLink rate."""
     devices = devices if devices is not None else jax.devices()
     return Mesh(np.array(devices).reshape(-1), (AXIS,))
 
 
-def _local_search(adjacency, live, entry, vectors, queries, accept,
-                  params: SearchParams, simf: SimilarityFunction):
-    """Per-shard two-phase search (runs inside shard_map, one device)."""
-    res_ids, res_scores, _, _ = searcher_mod.beam_search(
-        adjacency,
-        live,
-        entry,
-        queries,
-        {"vectors": vectors},
-        accept,
-        searcher_mod.make_exact_provider(simf.value),
-        L=max(params.ef_search, params.k * params.overquery_factor),
-        E=params.expansions_per_iter,
-        R=max(params.k * params.overquery_factor, params.k),
-        max_iters=params.max_iters
-        or max(8, -(-max(params.ef_search, params.k) // params.expansions_per_iter)),
-        vma_axis=AXIS,
-    )
-    top_s, top_i = topk_scores(res_scores, res_ids, params.k)
-    return top_i, top_s
-
-
-def sharded_search(
-    mesh: Mesh,
-    adjacency: jax.Array,  # [D, n, M]
-    live: jax.Array,  # [D, n]
-    entries: jax.Array,  # [D]
-    vectors: jax.Array,  # [D, n, d]
-    queries: jax.Array,  # [Q, d] (replicated)
-    params: SearchParams,
-    simf: SimilarityFunction,
-    accept: jax.Array | None = None,  # [D, n]
-):
-    """Scatter-gather search across the mesh -> global (ids [Q,k], scores).
-
-    Per-shard beam search runs fully parallel; only the [Q, k]-sized result
-    lists cross ICI (one all_gather), then every device computes the same
-    global top-k merge (replicated, no further comms).
-    """
-    d_shards, n_local = adjacency.shape[0], adjacency.shape[1]
-    if accept is None:
-        accept = jnp.ones((d_shards, n_local), bool)
-    run = _make_sharded_fn(mesh, params, simf, n_local)
-    return run(adjacency, live, entries, vectors, accept, queries)
-
-
-@functools.lru_cache(maxsize=None)
-def _make_sharded_fn(mesh: Mesh, params: SearchParams,
-                     simf: SimilarityFunction, n_local: int):
-    """Cached jitted program for sharded_search (stable identity per
-    (mesh, params, simf) so repeated calls don't retrace)."""
-
-    def shard_fn(adj, liv, ent, vec, acc, q):
-        adj, liv, vec, acc = adj[0], liv[0], vec[0], acc[0]
-        ids, scores = _local_search(adj, liv, ent[0], vec, q, acc, params, simf)
-        shard_idx = jax.lax.axis_index(AXIS)
-        gids = jnp.where(ids >= 0, shard_idx * n_local + ids, -1)
-        return gids[None], scores[None]  # [1, Q, k] per shard
-
-    # The per-shard top-k lists come back sharded over the mesh ([D, Q, k]);
-    # the global top-k merge below runs under the same jit, so XLA inserts
-    # the all-gather (ICI) for the tiny [Q, k] lists automatically.
-    # (NOT check_vma=False + manual all_gather: with VMA checking off this
-    # JAX version treats every value as unvarying and all_gather silently
-    # returns only the local shard — 7 of 8 shards would be dropped.)
-    fn = jax.shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P(AXIS), P(AXIS), P(AXIS), P(AXIS), P(AXIS), P()),
-        out_specs=(P(AXIS), P(AXIS)),
-    )
-
-    @jax.jit
-    def run(adjacency, live, entries, vectors, accept, queries):
-        all_ids, all_scores = fn(
-            adjacency, live, entries, vectors, accept, queries
-        )  # [D, Q, k]
-        qn = queries.shape[0]
-        flat_ids = jnp.transpose(all_ids, (1, 0, 2)).reshape(qn, -1)
-        flat_scores = jnp.transpose(all_scores, (1, 0, 2)).reshape(qn, -1)
-        top_s, top_i = topk_scores(flat_scores, flat_ids, params.k)
-        return top_i, top_s
-
-    return run
+def mesh_size(mesh: Mesh) -> int:
+    return int(np.prod(mesh.devices.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +52,7 @@ def _make_sharded_fn(mesh: Mesh, params: SearchParams,
 # search is the full search, exactly like OpenSearch's shard scatter-gather
 # where every shard is a whole index (SURVEY.md §2.5,
 # KNNStatsTransportAction.java:28). Only the [Q, k] doc-id/score lists and
-# the per-shard counters cross ICI (one all_gather each).
+# the per-shard counters cross the interconnect (one all_gather each).
 # ---------------------------------------------------------------------------
 
 
@@ -271,8 +188,13 @@ def homogenize_pq(shard_lists, similarity, cache=None):
     return out
 
 
-def stack_engine_state(segments) -> ShardedEngineState:
+def stack_engine_state(segments, mesh: Mesh | None = None
+                       ) -> ShardedEngineState:
     """Stack per-shard segment lists into mesh-ready [D, G, ...] arrays.
+
+    With `mesh`, every array is placed shard-per-device (leading axis split
+    over the mesh) once here, so searches never move corpus state between
+    devices; without it the arrays land on the default device.
 
     `segments`: one Segment per shard, or a list of Segments per shard
     (multi-segment shards — steady-state ingest with un-merged flushes).
@@ -292,21 +214,32 @@ def stack_engine_state(segments) -> ShardedEngineState:
                for k in grids[0] if grids[0][k] is not None}
     use_pq, use_nvq = mode["use_pq"], mode["use_nvq"]
     use_scalar = mode["use_scalar"]
+    if mesh is not None:
+        from opensearch_jvector_tpu.utils.circuit_breaker import BREAKER
+
+        per_device = sum(x.nbytes for x in stacked.values()) // len(grids)
+        for dev in mesh.devices.flat:
+            BREAKER.check(per_device, device=dev)
+        spec = NamedSharding(mesh, P(AXIS))
+
+        def put(x):
+            return jax.device_put(x, spec)
+    else:
+        put = jnp.asarray
     return ShardedEngineState(
-        adjacency=jnp.asarray(stacked["adj"]),
-        live=jnp.asarray(stacked["live"]),
-        entries=jnp.asarray(stacked["ent"]),
-        ord_to_doc=jnp.asarray(stacked["o2d"]),
-        vectors=jnp.asarray(stacked["v"]),
-        pq_codes=jnp.asarray(stacked["codes"]) if use_pq else None,
-        pq_codebooks=jnp.asarray(stacked["books"]) if use_pq else None,
-        pq_center=jnp.asarray(stacked["center"]) if use_pq else None,
-        nvq_bytes=jnp.asarray(stacked["nvq_b"]) if use_nvq else None,
-        nvq_params=jnp.asarray(stacked["nvq_p"]) if use_nvq else None,
-        nvq_mean=jnp.asarray(stacked["nvq_m"]) if use_nvq else None,
-        scalar_codes=jnp.asarray(stacked["sc_c"]) if use_scalar else None,
-        scalar_thresholds=(jnp.asarray(stacked["sc_t"])
-                           if use_scalar else None),
+        adjacency=put(stacked["adj"]),
+        live=put(stacked["live"]),
+        entries=put(stacked["ent"]),
+        ord_to_doc=put(stacked["o2d"]),
+        vectors=put(stacked["v"]),
+        pq_codes=put(stacked["codes"]) if use_pq else None,
+        pq_codebooks=put(stacked["books"]) if use_pq else None,
+        pq_center=put(stacked["center"]) if use_pq else None,
+        nvq_bytes=put(stacked["nvq_b"]) if use_nvq else None,
+        nvq_params=put(stacked["nvq_p"]) if use_nvq else None,
+        nvq_mean=put(stacked["nvq_m"]) if use_nvq else None,
+        scalar_codes=put(stacked["sc_c"]) if use_scalar else None,
+        scalar_thresholds=(put(stacked["sc_t"]) if use_scalar else None),
         approx_only=mode["use_disk"],
     )
 
@@ -498,7 +431,7 @@ def _slice_set(arr, idx, new):
 
 
 def restack_engine_state(prev_state: ShardedEngineState, prev_names,
-                         segments, names):
+                         segments, names, mesh: Mesh | None = None):
     """Incremental re-stack: rebuild only shards whose segment-name list
     changed, writing their [G, ...] slices into the previous state's device
     arrays (device-side copies — no full-corpus host re-upload).
@@ -538,12 +471,12 @@ def restack_engine_state(prev_state: ShardedEngineState, prev_names,
                 != mode["sc_shapes"][1]))
         )
     if full:
-        return stack_engine_state(segments), d_sh
+        return stack_engine_state(segments, mesh), d_sh
     changed = [d for d in range(d_sh) if names[d] != prev_names[d]]
     if not changed:
         return prev_state, 0
     if len(changed) == d_sh:
-        return stack_engine_state(segments), d_sh
+        return stack_engine_state(segments, mesh), d_sh
     grids = [_shard_grid(shard_lists[d], mode) for d in changed]
     idx = jnp.asarray(np.asarray(changed, np.int32))
     updates = {}
@@ -590,7 +523,7 @@ def _full_local_search(adj, live, entry, o2d, accept, queries,
     r = max(params.k * params.overquery_factor, params.k)
     ef = max(params.ef_search, r)
     e = params.expansions_per_iter
-    iters = params.max_iters or max(8, -(-ef // e))
+    iters = params.resolved_iters(ef)
     res_ids, res_scores, visited, expanded = searcher_mod.beam_search(
         adj, live, entry, qstate, ctx, accept, provider,
         L=ef, E=e, R=r, max_iters=iters, vma_axis=AXIS,
@@ -737,8 +670,10 @@ def _make_engine_fn(mesh: Mesh, params: SearchParams,
     )
 
     # Global merge under the same jit: the per-shard [Q, k] doc/score lists
-    # stay device-resident and XLA inserts the gather collective (ICI) for
-    # the final top-k (see sharded_search for why not manual all_gather).
+    # stay device-resident and XLA inserts the gather collective for the
+    # final top-k. (NOT check_vma=False + a manual all_gather: with VMA
+    # checking off this JAX version treats every value as unvarying and
+    # all_gather silently returns only the local shard.)
     @jax.jit
     def run(adjacency, live, entries, o2d, vectors, accept, cod, cb, ctr,
             nvq_b, nvq_p, nvq_m, sc_c, sc_t, queries):
@@ -792,7 +727,7 @@ def _make_approx_fn(mesh: Mesh, params: SearchParams,
     r = max(params.k * params.overquery_factor, params.k)
     ef = max(params.ef_search, r)
     e = params.expansions_per_iter
-    iters = params.max_iters or max(8, -(-ef // e))
+    iters = params.resolved_iters(ef)
 
     def shard_fn(adj, liv, ent, o2d, acc, cod, cb, ctr, q):
         adj, liv, o2d, acc = adj[0], liv[0], o2d[0], acc[0]
@@ -890,113 +825,3 @@ def _make_paged_rerank_fn(k: int, threshold: float,
         return top_d, top_s, jnp.sum(valid, axis=1).astype(jnp.int32)
 
     return run
-
-
-def dryrun_engine(mesh: Mesh, n_devices: int) -> None:
-    """Tiny end-to-end exercise of the full-engine mesh path (driver dryrun):
-    synthetic PQ shards with TWO segments per shard (the steady-state
-    multi-segment case), ADC beam + rerank + docmap + all_gather merge."""
-    rng = np.random.default_rng(1)
-    d_sh, g, n, m, dim, nsub, kq = n_devices, 2, 128, 8, 32, 8, 5
-    dsub = dim // nsub
-    vec = rng.standard_normal((d_sh, g, n, dim)).astype(np.float32)
-    state = ShardedEngineState(
-        adjacency=jnp.asarray(
-            rng.integers(0, n, size=(d_sh, g, n, m)).astype(np.int32)),
-        live=jnp.ones((d_sh, g, n), bool),
-        entries=jnp.zeros((d_sh, g), jnp.int32),
-        ord_to_doc=jnp.asarray(
-            (np.arange(d_sh * g * n, dtype=np.int32)).reshape(d_sh, g, n)),
-        vectors=jnp.asarray(vec),
-        pq_codes=jnp.asarray(
-            rng.integers(0, 16, size=(d_sh, g, n, nsub)).astype(np.int32)),
-        pq_codebooks=jnp.asarray(
-            rng.standard_normal((d_sh, g, nsub, 16, dsub)).astype(
-                np.float32)),
-        pq_center=jnp.asarray(np.zeros((d_sh, g, dim), np.float32)),
-    )
-    queries = jnp.asarray(rng.standard_normal((4, dim)).astype(np.float32))
-    docs, scores, counters = sharded_engine_search(
-        mesh, state, queries, SearchParams(k=kq, ef_search=32),
-        SimilarityFunction.EUCLIDEAN,
-    )
-    jax.block_until_ready(docs)
-    assert docs.shape == (4, kq) and counters.shape == (n_devices, 3)
-    assert int(jnp.max(docs)) < d_sh * g * n
-
-    # NVQ shards: aux-PQ beam + NVQ-decoded rerank on the mesh
-    params_nvq = np.zeros((d_sh, g, n, 2, 4), np.float32)
-    params_nvq[..., 0], params_nvq[..., 1] = 4.0, 0.5  # growthRate, midpoint
-    params_nvq[..., 2], params_nvq[..., 3] = -3.0, 3.0  # min, max
-    nvq_state = dataclasses.replace(
-        state,
-        vectors=jnp.zeros((d_sh, g, 1, dim), jnp.float32),
-        nvq_bytes=jnp.asarray(
-            rng.integers(0, 256, size=(d_sh, g, n, dim)).astype(np.uint8)),
-        nvq_params=jnp.asarray(params_nvq),
-        nvq_mean=jnp.zeros((d_sh, g, dim), jnp.float32),
-    )
-    docs2, _, _ = sharded_engine_search(
-        mesh, nvq_state, queries, SearchParams(k=kq, ef_search=32),
-        SimilarityFunction.EUCLIDEAN,
-    )
-    jax.block_until_ready(docs2)
-    assert docs2.shape == (4, kq)
-
-    # on_disk shards: approx-only mesh program (PQ beam -> candidate
-    # locators; the caller pages rows and reranks outside the mesh)
-    disk_state = dataclasses.replace(
-        state,
-        vectors=jnp.zeros((d_sh, g, 1, dim), jnp.float32),
-        approx_only=True,
-    )
-    p3 = SearchParams(k=kq, ef_search=32)
-    docs3, locs3, sc3, ctr3 = sharded_engine_search_approx(
-        mesh, disk_state, queries, p3, SimilarityFunction.EUCLIDEAN,
-    )
-    jax.block_until_ready(docs3)
-    r3 = max(p3.k * p3.overquery_factor, p3.k)
-    assert docs3.shape == (4, r3) and locs3.shape == (4, r3)
-    assert int(jnp.max(locs3)) < d_sh * g * n
-    assert ctr3.shape == (n_devices, 3)
-
-
-def build_sharded(
-    vectors_np,  # [N, d] host array
-    n_shards: int,
-    builder_factory,
-    simf: SimilarityFunction,
-):
-    """Partition a corpus round-robin into shards and build per-shard graphs.
-
-    Returns shard-stacked (adjacency, live, entries, vectors, global_ids).
-    Round-robin keeps shard sizes equal (pad the tail by repeating row 0 with
-    live=False).
-    """
-    import numpy as np
-
-    n = vectors_np.shape[0]
-    n_local = -(-n // n_shards)
-    adjs, lives, entries, vecs, gids = [], [], [], [], []
-    for s in range(n_shards):
-        idx = np.arange(s, n, n_shards)
-        pad = n_local - idx.size
-        sl = np.concatenate([idx, np.zeros(pad, idx.dtype)]) if pad else idx
-        v = vectors_np[sl]
-        builder = builder_factory()
-        g = builder.build(jnp.asarray(v), simf)
-        live = np.asarray(g.live)
-        if pad:
-            live[n_local - pad:] = False
-        adjs.append(np.asarray(g.adjacency))
-        lives.append(live)
-        entries.append(int(g.entry))
-        vecs.append(v)
-        gids.append(sl)
-    return (
-        jnp.asarray(np.stack(adjs)),
-        jnp.asarray(np.stack(lives)),
-        jnp.asarray(np.asarray(entries, np.int32)),
-        jnp.asarray(np.stack(vecs)),
-        np.stack(gids),
-    )

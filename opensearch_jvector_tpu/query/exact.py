@@ -4,7 +4,7 @@ Mirrors the painless `knn_score` engine's space functions
 (KNNScoringUtil.java:100-253: l2Squared, l1Norm, lInfNorm, innerProduct,
 cosinesimil, hamming) and the filtered-exact-search iterators
 (index/query/iterators/) used when a filter is too selective for graph
-search. Everything is one batched device scan (MXU matmul) + top-k,
+search. Everything is one batched device scan (matmul) + top-k,
 instead of the reference's per-doc scalar loops.
 """
 

@@ -86,8 +86,8 @@ def mmr_search(
     """Oversampled search + MMR rerank (the full pipeline in one call).
 
     Batched: `query_vector` may be [d] or [Q, d]. The oversampled ANN
-    search runs as ONE device dispatch for the whole batch (the engine's
-    core TPU advantage — batch amortization), and the candidate vectors
+    search runs as ONE device dispatch for the whole batch (batch
+    amortization), and the candidate vectors
     come back in ONE bulk `get_vectors`; only the tiny greedy selection
     loops per query on the host.
 

@@ -52,10 +52,9 @@ _DELETING = object()  # registry tombstone while drop() removes storage
 class MicroBatcher:
     """Dynamic micro-batching of concurrent single-vector knn searches.
 
-    The reference serves each query on its own CPU thread; a TPU serves
-    queries as BATCHES — one [Q, d] dispatch costs barely more than one
-    [1, d] dispatch (and through a remote-dispatch link, the fixed RTT
-    dominates a single query outright). Concurrent REST requests whose
+    The reference serves each query on its own CPU thread; an
+    accelerator serves queries as BATCHES — one [Q, d] dispatch costs
+    barely more than one [1, d] dispatch. Concurrent REST requests whose
     query parameters match are therefore coalesced: the first arrival
     becomes the leader, waits `window_ms` for followers, stacks the
     vectors, runs ONE `execute_knn_query`, and hands each requester its
@@ -139,12 +138,31 @@ class IndexManager:
         self.root.mkdir(parents=True, exist_ok=True)
         self._lock = threading.Lock()
         self._indices: dict[str, dict[str, VectorIndex]] = {}
-        # optional device mesh: sharded indexes whose shard count matches
-        # the mesh size get the full-engine mesh fast path
+        # optional device mesh: sharded indexes must have one shard per
+        # mesh device and then get the full-engine mesh path
         self.mesh = mesh
         # optional MicroBatcher: coalesces concurrent single-vector
         # searches into one device dispatch (None disables)
         self.batcher = batcher
+
+    def _make_field_index(self, name: str, field: str, config,
+                          n_shards: int):
+        """One field's index: a VectorIndex, or with n_shards > 1 a
+        ShardedVectorIndex placed on the service's mesh when one is
+        attached (the mesh must have one device per shard)."""
+        if n_shards == 1:
+            return VectorIndex(self.root / name / field, config)
+        from opensearch_jvector_tpu.parallel.distributed import (
+            ShardedVectorIndex,
+        )
+        from opensearch_jvector_tpu.parallel.sharded import mesh_size
+
+        if self.mesh is not None and mesh_size(self.mesh) != n_shards:
+            raise ValidationError(
+                f"number_of_shards ({n_shards}) must equal the service "
+                f"mesh's device count ({mesh_size(self.mesh)})")
+        return ShardedVectorIndex(self.root / name / field, config,
+                                  n_shards=n_shards, mesh=self.mesh)
 
     def create(self, name: str, mappings: dict,
                settings: dict | None = None) -> dict:
@@ -170,19 +188,7 @@ class IndexManager:
         parsed = {f: parse_knn_vector_mapping(m) for f, m in knn_fields}
 
         def make(f, config):
-            if n_shards > 1:
-                from opensearch_jvector_tpu.parallel.distributed import (
-                    ShardedVectorIndex,
-                )
-
-                mesh = self.mesh
-                if mesh is not None and int(
-                    np.prod(mesh.devices.shape)
-                ) != n_shards:
-                    mesh = None  # shard count must match the mesh size
-                return ShardedVectorIndex(self.root / name / f, config,
-                                          n_shards=n_shards, mesh=mesh)
-            return VectorIndex(self.root / name / f, config)
+            return self._make_field_index(name, f, config, n_shards)
 
         # reserve the name under the lock, construct OUTSIDE it (shard/dir
         # setup must not stall every other request on the registry lock)
@@ -238,23 +244,8 @@ class IndexManager:
             any_idx = next(iter(current.values()))
             n_shards = getattr(any_idx, "n_shards", 1)
 
-            def make(f, config):
-                if n_shards > 1:
-                    from opensearch_jvector_tpu.parallel.distributed import (
-                        ShardedVectorIndex,
-                    )
-
-                    mesh = self.mesh
-                    if mesh is not None and int(
-                        np.prod(mesh.devices.shape)
-                    ) != n_shards:
-                        mesh = None
-                    return ShardedVectorIndex(
-                        self.root / name / f, config,
-                        n_shards=n_shards, mesh=mesh)
-                return VectorIndex(self.root / name / f, config)
-
-            built = {f: make(f, c) for f, c in fresh.items()}
+            built = {f: self._make_field_index(name, f, c, n_shards)
+                     for f, c in fresh.items()}
             with self._lock:
                 val = self._indices.get(name)
                 if not isinstance(val, dict):

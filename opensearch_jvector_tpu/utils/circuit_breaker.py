@@ -3,8 +3,10 @@
 Mirrors the reference's knn memory circuit breaker
 (KNNSettings.java:68-75, default limit 50% at :108, cluster "triggered"
 flag): before building or loading a segment, estimate its device-memory
-footprint and trip the breaker when the configured fraction of HBM would
-be exceeded.
+footprint and trip the breaker when the configured fraction of the
+device's memory would be exceeded. Flushes and segment loads run on the
+default device and are checked there; mesh state is checked on every
+mesh device it is split over (parallel/sharded.stack_engine_state).
 """
 
 from __future__ import annotations
@@ -23,23 +25,25 @@ class MemoryCircuitBreaker:
         self.settings = settings
         self.tripped = False  # the cluster-level "triggered" flag analog
 
-    def device_memory_bytes(self) -> int | None:
+    @staticmethod
+    def _stats(device=None) -> dict:
+        """memory_stats() of `device`, by default the device JAX places new
+        arrays on (where flushes build and segments load); {} where the
+        platform has no memory introspection (e.g. CPU)."""
         try:
-            stats = jax.devices()[0].memory_stats()
-            if stats and "bytes_limit" in stats:
-                return int(stats["bytes_limit"])
+            if device is None:
+                device = (jax.config.jax_default_device
+                          or jax.devices()[0])
+            return device.memory_stats() or {}
         except Exception:  # noqa: BLE001 — platform-dependent API
-            pass
-        return None
+            return {}
 
-    def device_memory_in_use(self) -> int:
-        try:
-            stats = jax.devices()[0].memory_stats()
-            if stats and "bytes_in_use" in stats:
-                return int(stats["bytes_in_use"])
-        except Exception:  # noqa: BLE001
-            pass
-        return 0
+    def device_memory_bytes(self, device=None) -> int | None:
+        stats = self._stats(device)
+        return int(stats["bytes_limit"]) if "bytes_limit" in stats else None
+
+    def device_memory_in_use(self, device=None) -> int:
+        return int(self._stats(device).get("bytes_in_use", 0))
 
     @staticmethod
     def estimate_segment_bytes(n: int, dim: int, max_degree: int,
@@ -56,16 +60,17 @@ class MemoryCircuitBreaker:
             total += pq_subspaces * 256 * (dim // max(pq_subspaces, 1)) * 4
         return total
 
-    def check(self, additional_bytes: int) -> None:
-        """Raise CircuitBreakerException if the allocation would trip."""
+    def check(self, additional_bytes: int, device=None) -> None:
+        """Raise CircuitBreakerException if the allocation would trip on
+        `device` (default: the device new arrays land on)."""
         if not self.settings.get("knn.memory.circuit_breaker.enabled"):
             return
-        limit_total = self.device_memory_bytes()
+        limit_total = self.device_memory_bytes(device)
         if limit_total is None:
             return  # no memory introspection on this platform (e.g. CPU)
         frac = self.settings.get("knn.memory.circuit_breaker.limit") / 100.0
         budget = int(limit_total * frac)
-        projected = self.device_memory_in_use() + additional_bytes
+        projected = self.device_memory_in_use(device) + additional_bytes
         if projected > budget:
             self.tripped = True
             raise CircuitBreakerException(

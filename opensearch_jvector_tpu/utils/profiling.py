@@ -3,7 +3,7 @@
 The reference has no tracing framework — wall-clock timing feeds
 time-valued counters (SURVEY.md §5: JVectorWriter.java:195-206,
 JVectorIndexQuantization.java:97-99, JVectorReader.java:152). This keeps
-that counter set (api/stats.py) and adds the TPU-native layer: a jax
+that counter set (api/stats.py) and adds a device layer: a jax
 profiler trace per phase, toggled by env/setting, so device timelines can
 be inspected in TensorBoard/Perfetto.
 """

@@ -29,8 +29,8 @@ def test_breaker_trips_with_fake_memory(monkeypatch):
     settings = SettingsRegistry()
     settings.put("knn.memory.circuit_breaker.limit", 50.0)
     b = MemoryCircuitBreaker(settings)
-    monkeypatch.setattr(b, "device_memory_bytes", lambda: 1000)
-    monkeypatch.setattr(b, "device_memory_in_use", lambda: 400)
+    monkeypatch.setattr(b, "device_memory_bytes", lambda device=None: 1000)
+    monkeypatch.setattr(b, "device_memory_in_use", lambda device=None: 400)
     b.check(50)  # 450 <= 500
     assert not b.tripped
     with pytest.raises(CircuitBreakerException):
@@ -87,8 +87,8 @@ def test_breaker_guards_segment_load_and_merge(tmp_path, monkeypatch):
     name = idx.flush()
 
     # fake a tiny device: 1 KiB budget -> every load/merge trips
-    monkeypatch.setattr(cb.BREAKER, "device_memory_bytes", lambda: 2048)
-    monkeypatch.setattr(cb.BREAKER, "device_memory_in_use", lambda: 0)
+    monkeypatch.setattr(cb.BREAKER, "device_memory_bytes", lambda device=None: 2048)
+    monkeypatch.setattr(cb.BREAKER, "device_memory_in_use", lambda device=None: 0)
     with pytest.raises(cb.CircuitBreakerException):
         read_segment(tmp_path / name)
     seg_ok = None

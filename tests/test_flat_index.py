@@ -1,10 +1,9 @@
 """Flat (graph-less) index type: scan-tier-only segments.
 
 FlatVectorFieldMapper parity (the reference's no-index flat vector type):
-ingest is quantize + store only, every query serves through the MXU scan
-tier. On TPU this is a first-class production tier — a dense bf16 scan at
-batch saturates the MXU well past 1M codes — and the bulk `add_batch`
-surface makes big-corpus ingest one array append.
+ingest is quantize + store only, every query serves through the scan
+tier, and the bulk `add_batch` surface makes big-corpus ingest one array
+append.
 """
 
 import numpy as np

@@ -201,8 +201,8 @@ def _trip_breaker(monkeypatch):
     the breaker is normally a no-op in tests)."""
     from opensearch_jvector_tpu.utils import circuit_breaker as cb
 
-    monkeypatch.setattr(cb.BREAKER, "device_memory_bytes", lambda: 1)
-    monkeypatch.setattr(cb.BREAKER, "device_memory_in_use", lambda: 0)
+    monkeypatch.setattr(cb.BREAKER, "device_memory_bytes", lambda device=None: 1)
+    monkeypatch.setattr(cb.BREAKER, "device_memory_in_use", lambda device=None: 0)
 
 
 def test_on_disk_beam_tier_serves_when_breaker_trips(tmp_path, monkeypatch):
@@ -241,51 +241,36 @@ def test_on_disk_scan_tier_serves_when_breaker_trips(tmp_path, monkeypatch):
 
 def test_memory_tight_scan_large_batch_uses_fused_decode(tmp_path,
                                                          monkeypatch):
-    """Memory-tight scan tier with a big query batch routes through the
-    fused decode-in-VMEM kernel (codes-only HBM, Q-amortized decode) and
-    matches the unconstrained path's results. The codes_sq side-cache
-    (4 B/vec) is breaker-charged; when even THAT is refused the tier falls
-    back to the per-query-LUT kernel — both covered here."""
+    """Memory-tight scan tier with a big query batch: when the breaker
+    refuses the 2*d-byte decoded cache, the scan scores the raw codes
+    through per-query lookup tables (the codes-only LUT ADC route,
+    `_adc_block_topr`) and returns the unconstrained path's results."""
     from opensearch_jvector_tpu.index import reader as reader_mod
 
-    idx, v, q8 = _build_small_on_disk(tmp_path, seed=11)
+    idx, v, _ = _build_small_on_disk(tmp_path, seed=11)
     rng = np.random.default_rng(12)
-    q = rng.standard_normal((16, DIM)).astype(np.float32)
+    q = rng.standard_normal((256, DIM)).astype(np.float32)
     baseline = idx.search(q, SearchConfig(k=10, ef_search=64))
-
-    # force the TPU routing on the CPU backend (kernel interprets there);
-    # the real backend gate is covered by the TPU bench cells
-    routed = {"fused": 0}
-    real_ok = reader_mod._fused_scan_ok
-
-    def force_ok(q_count, pq):
-        routed["fused"] += 1
-        return True
-
-    monkeypatch.setattr(reader_mod, "_fused_scan_ok", force_ok)
     rd = idx._reader(idx.segment_names[0])
+    assert rd._pq_decoded is not None  # unconstrained: decoded-cache scan
+
+    routed = {"lut": 0}
+    real_block = reader_mod._adc_block_topr
+
+    def counting_block(*args, **kwargs):
+        routed["lut"] += 1
+        return real_block(*args, **kwargs)
+
+    monkeypatch.setattr(reader_mod, "_adc_block_topr", counting_block)
     rd._pq_decoded = None  # drop the cache built by the baseline search
     rd._pq_decoded_sq = None
     _trip_breaker(monkeypatch)
     res = idx.search(q, SearchConfig(k=10, ef_search=64))
-    assert routed["fused"] > 0
+    assert routed["lut"] > 0
     assert rd._pq_decoded is None  # decoded cache never rebuilt
-    assert rd._codes_sq_cache is None  # breaker refused even 4 B/vec...
-    np.testing.assert_array_equal(res.doc_ids, baseline.doc_ids)  # LUT fell
-    # ...now allow small allocations: fused path engages for real
-    from opensearch_jvector_tpu.utils import circuit_breaker as cb
-
-    # budget = 50% of this: codes_sq (4 B/vec ~ 4KB) fits, the decoded
-    # cache (2*d B/vec ~ 32KB at DIM=16) does not
-    monkeypatch.setattr(cb.BREAKER, "device_memory_bytes", lambda: 20_000)
-    res2 = idx.search(q, SearchConfig(k=10, ef_search=64))
-    assert rd._codes_sq_cache is not None
-    assert rd._pq_decoded is None
     truth = ground_truth_topk(q, v, 10, SimilarityFunction.EUCLIDEAN)
-    assert recall_at_k(res2.doc_ids, truth, 10) >= 0.8
-    np.testing.assert_array_equal(res2.doc_ids, baseline.doc_ids)
-    # the real gate: CPU backend + small batches stay on the LUT path
-    assert real_ok(8, idx._reader(idx.segment_names[0]).seg.pqv.pq) is False
+    assert recall_at_k(res.doc_ids, truth, 10) >= 0.8
+    np.testing.assert_array_equal(res.doc_ids, baseline.doc_ids)
 
 
 def test_scan_tier_bound_is_a_dynamic_setting(tmp_path, monkeypatch):
@@ -328,7 +313,7 @@ def test_scan_tier_bound_is_a_dynamic_setting(tmp_path, monkeypatch):
 
 
 def test_flush_device_rows_provider_matches_host_flush(tmp_path):
-    """flush(device_rows=...) — the TPU-native ingest source for vectors
+    """flush(device_rows=...) — the ingest source for vectors
     already on device — must produce the same segment contents as the
     host-buffer flush (codes, rows, search results)."""
     import jax.numpy as jnp

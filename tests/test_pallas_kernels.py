@@ -1,45 +1,72 @@
-"""Pallas kernel correctness vs the XLA reference path.
+"""Pallas kernel correctness vs the plain references.
 
-Runs in interpret mode on the CPU test mesh; the same code compiles via
-Mosaic on TPU (exercised by bench.py / verify drives).
+The ADC scan kernel (`ops/pallas/adc_gpu.py`, Triton route) runs here in
+interpret mode; `chip_smoke.py` checks the compiled kernel on the GPU.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from opensearch_jvector_tpu.ops import adc as adc_ops
-from opensearch_jvector_tpu.ops.pallas.adc_kernel import fused_adc_scan
+from opensearch_jvector_tpu.ops.pallas.adc_gpu import adc_scan_triton
+
+SHAPES = [
+    (300, 7, 64, 256),     # sift-like: M=64, N not a block multiple
+    (257, 16, 192, 256),   # 960d default schedule: M padded to 256
+    (64, 3, 8, 16),        # tiny K
+    (1030, 130, 12, 256),  # Q > block, M padded to 16
+    (16, 1, 6, 256),       # Q=1
+]
 
 
-def test_fused_adc_matches_xla_scan():
-    rng = np.random.default_rng(0)
-    n, m, k, q = 300, 8, 64, 4  # n not a block multiple -> exercises padding
-    codes = jnp.asarray(rng.integers(0, k, size=(n, m)), jnp.int32)
-    luts = jnp.asarray(rng.standard_normal((q, m, k)).astype(np.float32))
-    ref = adc_ops.lookup_scan(luts, codes)
-    out = fused_adc_scan(luts, codes, block_n=128)
-    assert out.shape == (q, n)
-    # bf16 LUT quantization: per-entry rel err ~2^-8 accumulated over M
-    # subspaces -> abs error up to ~M * 0.004 on unit-scale tables
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-2, atol=4e-3 * 8)
+def _oracle(luts, codes):
+    m = luts.shape[1]
+    return luts.astype(np.float64)[:, np.arange(m)[None, :],
+                                   codes.astype(np.int64)].sum(-1)
 
 
-def test_fused_adc_uint8_codes():
-    rng = np.random.default_rng(1)
-    n, m, k, q = 128, 4, 256, 2
-    codes = jnp.asarray(rng.integers(0, k, size=(n, m)), jnp.uint8)
-    luts = jnp.asarray(rng.standard_normal((q, m, k)).astype(np.float32))
-    ref = adc_ops.lookup_scan(luts, codes.astype(jnp.int32))
-    out = fused_adc_scan(luts, codes, block_n=128)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-2, atol=4e-3 * 4)
+@pytest.mark.parametrize("n,qn,m,k", SHAPES)
+def test_triton_adc_kernel_matches_oracle(n, qn, m, k):
+    rng = np.random.default_rng(n + m)
+    luts = rng.random((qn, m, k), dtype=np.float32)
+    codes = rng.integers(0, k, (n, m)).astype(np.uint8)
+    out = adc_scan_triton(jnp.asarray(luts), jnp.asarray(codes),
+                          interpret=True)
+    assert out.shape == (qn, n)
+    np.testing.assert_allclose(np.asarray(out), _oracle(luts, codes),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("bq,bn", [(1, 16), (4, 64), (8, 128)])
+def test_triton_adc_kernel_block_shapes_pad(bq, bn):
+    """Any block shape gives the same sums: Q and N are padded to the
+    block, M and K to powers of two, and the padding is sliced off."""
+    rng = np.random.default_rng(bq)
+    luts = rng.random((5, 10, 24), dtype=np.float32)
+    codes = rng.integers(0, 24, (70, 10)).astype(np.int32)
+    out = adc_scan_triton(jnp.asarray(luts), jnp.asarray(codes),
+                          block_q=bq, block_n=bn, interpret=True)
+    np.testing.assert_allclose(np.asarray(out), _oracle(luts, codes),
+                               rtol=1e-5)
+
+
+def test_lookup_scan_off_gpu_is_the_xla_form():
+    """`lookup_scan` picks its kernel by platform: off the GPU it is the
+    XLA gather form, with no Triton call in the compiled program."""
+    rng = np.random.default_rng(4)
+    luts = jnp.asarray(rng.random((8, 16, 64), dtype=np.float32))
+    codes = jnp.asarray(rng.integers(0, 64, (200, 16)).astype(np.uint8))
+    assert jax.devices()[0].platform == "cpu"
+    hlo = adc_ops.lookup_scan.lower(luts, codes).compile().as_text()
+    assert "triton" not in hlo
+    np.testing.assert_array_equal(
+        np.asarray(adc_ops.lookup_scan(luts, codes)),
+        np.asarray(adc_ops.lookup_scan_xla(luts, codes)))
 
 
 def test_exact_topk_wide_matches_lax_topk():
-    import jax
-    import jax.numpy as jnp
-
     from opensearch_jvector_tpu.ops.topk import exact_topk_wide
 
     rng = np.random.default_rng(3)

@@ -290,7 +290,7 @@ def test_quantization_state_cache_evicts():
 
 def test_batched_query_execution(small_index):
     """[Q, d] query vectors run as ONE batched engine call end-to-end,
-    including rescore (the TPU batch-amortization surface)."""
+    including rescore (the batch-amortization surface)."""
     idx, v = small_index
     qv = np.stack([v[3], v[17], v[29]])
     q = parse_knn_query({"vector": qv, "k": 5,

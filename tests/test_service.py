@@ -103,7 +103,7 @@ def test_full_rest_lifecycle(service):
 
 
 def test_rest_batched_search_one_dispatch(service, monkeypatch):
-    """A [Q, d] query vector runs as ONE engine dispatch (the TPU batch
+    """A [Q, d] query vector runs as ONE engine dispatch (the batch
     amortization surface) and returns one response per query."""
     import opensearch_jvector_tpu.index.reader as reader_mod
 
@@ -721,7 +721,7 @@ def test_cluster_settings_roundtrip(service):
 def test_micro_batching_coalesces_concurrent_searches(service):
     """Concurrent single-vector searches with identical params must
     coalesce into one device dispatch (MicroBatcher), and every requester
-    must get ITS OWN row — the TPU-serving analog of per-thread CPU
+    must get ITS OWN row — the device-serving analog of per-thread CPU
     queries."""
     import threading
 
